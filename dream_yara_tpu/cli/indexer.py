@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
@@ -20,7 +21,7 @@ from .common import cli_guard as __cli_guard,  expand_bin_paths
 
 
 def device_bytes_per_bp(sample_rate: int) -> float:
-    """HBM bytes per text bp for one resident DeviceFM: text(1) + bwt(1)
+    """Device-memory bytes per text bp for one resident DeviceFM: text(1) + bwt(1)
     + occ(24/128) + fused rank rows(96/128) + SA (4 full / ~0.7 sampled@8)."""
     sa = 4.0 / sample_rate + (0.3 if sample_rate > 1 else 0.0)
     return 1 + 1 + 24 / 128 + 96 / 128 + sa
@@ -29,13 +30,26 @@ def device_bytes_per_bp(sample_rate: int) -> float:
 AUTO_RATES = (1, 8, 16, 32)
 
 
-def auto_sample_rate(total_bp: int, hbm_gb: float) -> int:
-    """Default SA sampling rate when -sr is not given (VERDICT r2 weak #6:
-    a full-SA default produced artifacts the flagship config could not
-    load). The mapper stacks EVERY bin's tables on one chip in the flat
-    path, so the rule sizes the WHOLE database against half the chip's
-    HBM (the other half holds the filter, read batches and activations):
-    smallest rate whose device footprint fits, full SA for small DBs."""
+def device_memory_gib() -> float | None:
+    """Memory the first JAX device offers (memory_stats()["bytes_limit"])
+    in GiB; None on a platform without memory stats (the CPU)."""
+    import jax
+
+    stats = jax.devices()[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return limit / (1 << 30) if limit else None
+
+
+def auto_sample_rate(total_bp: int, hbm_gb: float | None) -> int:
+    """Default SA sampling rate when --sample-rate is not given (a full-SA
+    default can produce artifacts a large database cannot load). The
+    mapper stacks EVERY bin's tables on one device in the flat path, so
+    the rule sizes the WHOLE database against half the device's memory
+    (the other half holds the filter, read batches and activations):
+    smallest rate whose device footprint fits, full SA for small DBs or
+    when no budget is known."""
+    if hbm_gb is None:
+        return 1
     budget = hbm_gb * (1 << 30) * 0.5
     if total_bp <= 100 * 10**6:
         return 1
@@ -54,12 +68,15 @@ def estimate_total_bp(paths) -> int:
     return total
 
 
-def check_hbm_ceiling(n_bp: int, sample_rate: int, hbm_gb: float, bin_id,
-                      allow_oversize: bool = False):
-    """A bin must fit one device's HBM (SURVEY.md §5.7). Refuse with
+def check_hbm_ceiling(n_bp: int, sample_rate: int, hbm_gb: float | None,
+                      bin_id, allow_oversize: bool = False):
+    """A bin must fit one device's memory (SURVEY.md §5.7). Refuse with
     actionable guidance instead of building an unusable artifact —
     unless the user opts into sharded big-bin mapping (--allow-oversize,
-    parallel/sharded_fm.py splits every table over a mesh axis)."""
+    parallel/sharded_fm.py splits every table over a mesh axis). No
+    check without a budget (hbm_gb None)."""
+    if hbm_gb is None:
+        return
     need = n_bp * device_bytes_per_bp(sample_rate)
     budget = hbm_gb * (1 << 30) * 0.8  # leave 20% for activations
     if need > budget and allow_oversize and sample_rate != 1:
@@ -69,7 +86,7 @@ def check_hbm_ceiling(n_bp: int, sample_rate: int, hbm_gb: float, bin_id,
                  "sampling it")
     if need > budget and allow_oversize:
         print(f"[indexer] bin {bin_id}: ~{need / 2**30:.1f} GiB exceeds one "
-              f"device's HBM; map it with ShardedBinMapper over "
+              f"device's memory; map it with ShardedBinMapper over "
               f">= {int(need / budget) + 1} devices", file=sys.stderr)
         return
     if need > budget:
@@ -77,7 +94,7 @@ def check_hbm_ceiling(n_bp: int, sample_rate: int, hbm_gb: float, bin_id,
         max_bp = int(budget / per_bp)
         sys.exit(
             f"error: bin {bin_id}: {n_bp} bp needs ~{need / 2**30:.1f} GiB "
-            f"of device HBM (> {hbm_gb} GiB chip budget).\n"
+            f"of device memory (> {hbm_gb:.1f} GiB device budget).\n"
             f"  Split this bin into pieces of at most ~{max_bp // 10**6} Mbp "
             f"(taxonomic splitting keeps the DREAM update property), or\n"
             f"  rebuild with --sample-rate 8 (sampled SA cuts the footprint "
@@ -85,7 +102,7 @@ def check_hbm_ceiling(n_bp: int, sample_rate: int, hbm_gb: float, bin_id,
             f"  map it sharded over K devices "
             f"(parallel/sharded_fm.ShardedBinMapper splits every table over "
             f"a mesh axis; pass --allow-oversize here to build the artifact "
-            f"anyway), or raise --hbm-gb if your chips have more memory.")
+            f"anyway), or raise --hbm-gb if your devices have more memory.")
 
 
 def build_one_bin(args):
@@ -131,13 +148,17 @@ def main(argv=None):
     p.add_argument("--sample-rate", type=int, default=None,
                    help="SA sampling rate (1 = full SA). Default: auto — "
                         "smallest of (1, 8, 16, 32) whose whole-database "
-                        "device footprint fits half of --hbm-gb; --bin-id "
-                        "rebuilds inherit the database's existing rate")
-    p.add_argument("--hbm-gb", type=float, default=16.0,
-                   help="per-chip HBM budget used to refuse bins that could "
-                        "never be device-resident (v5e: 16)")
+                        "device footprint fits half of the device-memory "
+                        "budget; --bin-id rebuilds inherit the database's "
+                        "existing rate")
+    p.add_argument("--hbm-gb", type=float, default=None,
+                   help="per-device memory budget in GiB used to refuse bins "
+                        "that could never be device-resident. Default: the "
+                        "first JAX device's memory_stats() bytes_limit; on a "
+                        "platform without memory stats (the CPU) no budget "
+                        "applies unless this is given")
     p.add_argument("--allow-oversize", action="store_true",
-                   help="build bins larger than one device's HBM anyway "
+                   help="build bins larger than one device's memory anyway "
                         "(map them sharded: parallel/sharded_fm.py)")
     p.add_argument("--tmp-dir", default=None,
                    help="external-memory SA construction: back the suffix-array\n"
@@ -156,6 +177,13 @@ def main(argv=None):
 
     db_dir = Path(a.output_dir)
     db_dir.mkdir(parents=True, exist_ok=True)
+    if a.hbm_gb is None:
+        a.hbm_gb = device_memory_gib()
+        if a.hbm_gb is None:
+            print("[indexer] the device reports no memory stats and no "
+                  "--hbm-gb was given: bins are not checked against device "
+                  "memory and the default SA sampling rate is 1",
+                  file=sys.stderr)
 
     if a.bin_id is not None:
         paths = expand_bin_paths(a.bins, a.bins_dir)
@@ -187,7 +215,8 @@ def main(argv=None):
         if rate > 1:
             print(f"[indexer] auto sample-rate {rate} "
                   f"(~{estimate_total_bp(paths) / 10**9:.2f} Gbp database "
-                  f"vs {a.hbm_gb} GiB HBM; override with --sample-rate)",
+                  f"vs {a.hbm_gb:.1f} GiB device memory; override with "
+                  f"--sample-rate)",
                   file=sys.stderr)
     a.sample_rate = rate
     jobs = [(f, db_dir, b, rate, a.hbm_gb, a.allow_oversize,
@@ -195,7 +224,11 @@ def main(argv=None):
             for b, f in enumerate(paths)]
     t0 = time.time()
     if a.threads > 1:
-        with ProcessPoolExecutor(max_workers=a.threads) as ex:
+        # spawn: the parent may already hold an initialized JAX backend
+        # (device_memory_gib), which a forked worker must not inherit
+        with ProcessPoolExecutor(
+                max_workers=a.threads,
+                mp_context=multiprocessing.get_context("spawn")) as ex:
             results = list(ex.map(build_one_bin, jobs))
     else:
         results = [build_one_bin(j) for j in jobs]

@@ -20,7 +20,7 @@ import time
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="dream-yara-tpu-mapper",
-        description="TPU-native DREAM read mapper (SE or PE).")
+        description="DREAM read mapper on a JAX device (SE or PE).")
     p.add_argument("db_dir", help="database directory from the indexer")
     p.add_argument("reads", help="FASTQ (optionally .gz)")
     p.add_argument("reads2", nargs="?", default=None, help="mate FASTQ (PE mode)")
@@ -61,20 +61,9 @@ def main(argv=None):
     p.add_argument("--process-id", type=int, default=None)
     a = p.parse_args(argv)
 
-    import os
+    from .common import enable_compile_cache
 
-    import jax
-
-    from .common import configure_jax_platform
-
-    configure_jax_platform()
-    try:  # persistent compile cache (first-run TPU compiles are minutes)
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ.get("DY_JAX_CACHE") or
-                          os.path.expanduser("~/.cache/dream_yara_tpu_xla"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    enable_compile_cache()
 
     if a.coordinator is not None:
         from ..parallel.multihost import init_multihost

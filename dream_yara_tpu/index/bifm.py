@@ -24,11 +24,11 @@ extend_right is the mirror image on the reverse index.  The smaller-symbol
 sum uses the CODE order (A,C,G,T,N,$ = 0..5) because that is the order the
 suffix array sorts by.
 
-TPU-first cost model: one extension needs occ counts for ALL six symbols at
+Cost model: one extension needs occ counts for ALL six symbols at
 two rows — which the fused rank-row layout (ops/rank.py
 build_fused_rank_rows) already delivers in the SAME two row gathers a plain
 rank query pays.  Bidirectional state is therefore gather-neutral; only the
-in-block VPU compare-count runs per-symbol.  The payoff is the search-scheme
+in-block vector compare-count runs per-symbol.  The payoff is the search-scheme
 approximate seed search (ops/bidir_search.py): the exact scheme part is
 walked ONCE per seed and shared by every error-layout lane, and the
 middle-part scheme (error left AND right of an exact core) is impossible

@@ -1,13 +1,13 @@
 """FM-index over one bin's concatenated contig text.
 
 Analog of reference SeqAn FMIndex with YaraFMConfig (SURVEY.md §2.4 [U]):
-2-bit-packed rank dictionary + sampled SA in the reference. TPU-first layout
+2-bit-packed rank dictionary + sampled SA in the reference. Device-first layout
 here (designed for batched gathers, the device-side hot loop in
 ops/backward_search.py):
 
   * BWT stored as dense int8 *blocks* of BLOCK=128 chars: shape
     (n_blocks, 128). A rank query gathers exactly one row (128 B) — the
-    natural TPU lane width and within one HBM transaction.
+    wide vector width and a few memory transactions.
   * Occ checkpoints every BLOCK chars: int32 (n_blocks+1, SIGMA).
     rank_c(i) = occ[i>>7, c] + popcount(bwt_block[i>>7][0 : i&127] == c).
   * C table: int32 (SIGMA+1,) cumulative symbol counts of the text.

@@ -2,7 +2,7 @@
 
 The device (jnp) implementation in ops/ibf_query.py reproduces EXACTLY this
 arithmetic; tests assert host/device hash equality. All arithmetic is uint32
-with wraparound so the TPU (no 64-bit ints) and host agree bit-for-bit.
+with wraparound so the device (no 64-bit ints by default in JAX) and host agree bit-for-bit.
 
 K-mer value convention: kmer_lo/hi are the 2-bit packed window with the FIRST
 base in the LEAST significant bits of lo; bases 16..k-1 go to hi. k <= 32.
@@ -109,8 +109,8 @@ def ibf_blocked_rows(lo: np.ndarray, hi: np.ndarray, n_hashes: int,
     """Blocked-layout hash rows: all n_hashes probes of a k-mer land inside
     ONE 128-word block (S = 128/words_per_row consecutive rows), so the
     device query gathers a single 512 B block row per window instead of
-    n_hashes scattered words — gathers cost per INDEX on TPU
-    (tools/proto_gather_rate.py), row width is nearly free. Probe sub-rows
+    n_hashes scattered words (one index per window instead of n_hashes).
+    Probe sub-rows
     are base + j*stride mod S with an odd stride (S is a power of two), so
     the n_hashes probes are distinct. Same (nk, n_hashes) shape/contract as
     ibf_rows; classic cache-blocked Bloom analysis applies (slightly higher

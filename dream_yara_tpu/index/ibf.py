@@ -5,7 +5,7 @@ the reference's interleaving (BASELINE.json "IBF bitvector layout"): one flat
 bit space of n_rows * bins_padded bits; hash h_j(kmer) selects a ROW; within a
 row there is one bit per bin. Bit index = hash * bins_padded + bin_id.
 
-TPU-first storage: uint32 word matrix `words` of shape (n_rows, bins_padded/32)
+Device-first storage: uint32 word matrix `words` of shape (n_rows, bins_padded/32)
 — a device query gathers whole rows (one per hash), ANDs them across hashes,
 and unpacks bits to per-bin counters (ops/ibf_query.py). bins_padded is rounded
 to a multiple of 64 like the reference [U].
@@ -49,8 +49,8 @@ class InterleavedBloomFilter:
                        # rows all live in ONE 128-word block, so the device
                        # classifier gathers a single 512 B block row per
                        # window instead of n_hashes scattered words
-                       # (hashing.ibf_blocked_rows) — gathers cost per index
-                       # on TPU. Default for new filters with <= 512 bins;
+                       # (hashing.ibf_blocked_rows). Default for new
+                       # filters with <= 512 bins;
                        # 0 = classic layout (old artifacts, or > 512 bins).
     slack_table: np.ndarray | None = None
                        # minimizer-mode routing slack per error count,

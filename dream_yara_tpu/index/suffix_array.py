@@ -1,7 +1,7 @@
 """Suffix array construction (host side, offline indexer path).
 
 Analog of reference SeqAn `indexCreate(index, FibreSALF())` (SURVEY.md §2.4):
-SA construction is the indexer's hot spot and runs on host, not TPU — it is a
+SA construction is the indexer's hot spot and runs on host, not the device — it is a
 one-time offline cost. Two engines:
 
   * `build_suffix_array(text)` — dispatches to the C++ SA-IS engine

@@ -3,7 +3,7 @@
 Analog of reference src/file_pair.h / file_prefetched.h [U]: the reference
 overlaps FASTQ decoding with compute via a prefetch thread; here
 FastqBatchReader decodes the *next* batch on a background thread while the
-device maps the current one (same double-buffering idea, host→TPU edition).
+device maps the current one (same double-buffering idea, host→device edition).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Device-ready read batches.
 
-TPU-first layout (vs. reference src/bits_reads.h ragged StringSet [U]): reads
+Device-first layout (vs. reference src/bits_reads.h ragged StringSet [U]): reads
 are padded into a dense (n_seqs, max_len) int8 matrix with a length vector —
 static shapes for XLA. Sequence-id arithmetic reproduces the reference layout
 [fwd mates1 | fwd mates2 | rc mates1 | rc mates2] (bits_reads.h getReadSeqId /

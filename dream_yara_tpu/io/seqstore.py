@@ -4,7 +4,7 @@ Analog of reference src/store_seqs.h SeqStore [U]: loads fasta, holds the
 concatenated contig text, names, lengths; (de)serializes; translates global
 position <-> (contig id, local position).
 
-TPU-first layout: one flat int8 code array `text` = contig0 $ contig1 $ ... $
+Device-first layout: one flat int8 code array `text` = contig0 $ contig1 $ ... $
 (SENTINEL-separated and -terminated, so FM-index matches can never span
 contigs), plus int64 `offsets` (start of each contig in `text`). The FM text is
 exactly this array; verification windows index it directly.

@@ -1,7 +1,7 @@
 """Idempotent per-batch output shards — crash-safe mapping runs (SURVEY §5.3).
 
 The reference recovers long runs at file granularity (re-run the failed
-invocation); the streaming TPU pipeline maps per-batch, so the natural
+invocation); the streaming device pipeline maps per-batch, so the natural
 checkpoint is one OUTPUT SHARD per input batch:
 
   <dir>/header.sam            SAM header (written once)

@@ -2,7 +2,7 @@
 //
 // Native analog of the reference's SeqAn FASTQ parsing behind
 // file_prefetched.h [U] (SURVEY.md §2.5): the host-side input path must keep
-// the TPU fed, so records are decoded straight into the dense (n, max_len)
+// the device fed, so records are decoded straight into the dense (n, max_len)
 // int8 code matrix the device consumes — no per-record Python objects.
 //
 // Build: g++ -O3 -march=native -shared -fPIC seqio.cpp -o libdyseqio.so

@@ -7,7 +7,7 @@ LONGER seeds searched with up to one substitution — pigeonhole still covers
 the error budget (s' = ceil((E+1)/2) seeds, some seed has <= floor(E/s') <= 1
 error) while long seeds collapse the hit explosion on repeats.
 
-TPU-first backtracking: the reference's bounded DFS becomes a dense layout
+Lockstep backtracking: the reference's bounded DFS becomes a dense layout
 enumeration — every explicit placement of <= budget edits in the seed's
 matched window is one lane of a (seeds, layouts) matrix, all advanced in a
 single lockstep backward loop (no data-dependent control flow). See
@@ -74,7 +74,7 @@ def seed_search_edits(bwt_blocks, occ, counts, n, reads, rows, starts, slens,
     """SA intervals of every <=budget-edit layout of each seed's last
     min(slens, max_slen) chars, all advanced in ONE lockstep backward loop.
 
-    TPU-first: the reference's bounded DFS becomes a dense (S, NL) lane
+    Lockstep: the reference's bounded DFS becomes a dense (S, NL) lane
     matrix — NL static layouts per seed, each lane's character sequence
     derived arithmetically from (kind, p1, a1, p2, a2), no data-dependent
     control flow. Truncation (max_slen ~ t_stop) is what makes NL affordable

@@ -1,7 +1,7 @@
 """Batched exact backward search of seeds in one bin's FM-index.
 
 Reference analog: multi-pattern exact search in src/mapper_filter.h findSeeds<0>
-via SeqAn FM iterators [U]. TPU-first: all S seeds advance in lockstep through
+via SeqAn FM iterators [U]. Lockstep: all S seeds advance in lockstep through
 a fixed-trip-count fori_loop over seed length; each step issues 2S rank queries
 as one batched gather (lo and hi bounds fused into a single (2S,) rank call so
 the BWT row gathers coalesce). Dead seeds (empty interval / invalid) are
@@ -75,9 +75,8 @@ def seed_search(bwt_blocks, occ, counts, n, reads: jnp.ndarray,
     SEED'S END — chars_fe[s, j] = reads[rows[s], starts[s] + slens[s] - 1 - j]
     (pad 4 past slens[s]). When the caller can build it WITHOUT gathers
     (uniform read lengths => static per-seed windows, map_step), passing it
-    replaces every per-trip read-matrix char gather (the dominant device cost:
-    int8 flat gathers run ~3x slower per index than fused-rank row gathers,
-    tools/proto_gather_rate.py) with static/contiguous column slices.
+    replaces every per-trip read-matrix char gather with static/contiguous
+    column slices.
 
     Returns (lo, hi, m_start): each (S,) int32.
     """
@@ -109,9 +108,8 @@ def seed_search(bwt_blocks, occ, counts, n, reads: jnp.ndarray,
             ok_tab = ok_tab & (c < 4)
             m_idx = (m_idx << 2) | (c & 3)
         # ONE (4^q, 2) row gather instead of two element gathers into the
-        # big tables (big-table element gathers measured ~76M idx/s vs 385M
-        # for row gathers — tools/proto_tunnel_costs.py). `pfx_fetch`
-        # overrides for mesh-sharded tables (parallel/sharded_fm.py).
+        # big tables. `pfx_fetch` overrides for mesh-sharded tables
+        # (parallel/sharded_fm.py).
         if pfx_fetch is not None:
             t_both = pfx_fetch(m_idx)
         else:

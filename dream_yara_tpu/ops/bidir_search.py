@@ -9,7 +9,7 @@ scheme's exact part ONCE per seed and fork error-layout lanes only over
 the remaining parts, and the middle-exact scheme (one error on each side
 of an exact core) is unreachable without extend_right at all.
 
-TPU-first shape: each scheme is a pair of lockstep fori_loops — a shared
+Shape: each scheme is a pair of lockstep fori_loops — a shared
 phase over (S,) states for the exact part, then a lane phase over
 (S, NL_scheme) states — no data-dependent control flow, mirroring
 seed_search_edits' dense style.  Bidirectional state (l, h, lr, hr) costs
@@ -57,8 +57,8 @@ def _ext_core(fused, counts, lo, hi, c):
     concatenated (lo, hi) queries, and per row just TWO compare-counts
     over the decoded block (== c for the interval, < c for the reverse
     realignment) — the first cut computed all six symbols' occ (6
-    compare-counts) and measured 0.8x vs enumeration on the TPU; this
-    version restores the step-count advantage. BWT pad decodes to 7,
+    compare-counts), which threw away the step-count advantage over
+    enumeration; this version keeps it. BWT pad decodes to 7,
     which is neither == nor < any real symbol code."""
     shape = lo.shape
     cf = c.reshape(-1)

@@ -82,11 +82,10 @@ class DeviceFMSet(NamedTuple):
     # sampled-SA mode (uniform sample_rate over all bins, else full SA).
     # Mark bits are stored pre-grouped as (B, nw/4, 4): the flat step's
     # fused locate gathers 4-word rows, and building that view in-program
-    # from a (B, nw) argument splits the minor dim — a reshape XLA
-    # materializes in the default (8,128)-tiled layout, padding 4->128
-    # lanes (measured: a 244 MB mark table became a 7.6 GB HLO temp and
-    # OOM'd the 64x32 Mbp config-3 database). A leading-dim merge of this
-    # layout is a free bitcast, like `fused`.
+    # from a (B, nw) argument splits the minor dim — a reshape a tiled
+    # memory layout can materialize with the 4-wide minor dim padded many
+    # times over. A leading-dim merge of this layout is a free bitcast,
+    # like `fused`.
     sa_mark_bits: jnp.ndarray | None = None  # (B, nw/4, 4) uint32
     sa_rank_ck: jnp.ndarray | None = None    # (B, nck+1) int32
 

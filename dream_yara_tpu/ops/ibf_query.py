@@ -2,8 +2,8 @@
 
 Reference analog: src/d_bloom_filter.h whichBins [U]: per k-mer, AND the
 n_hashes rows, accumulate per-bin counters, threshold by the k-mer lemma.
-TPU-first: all reads x k-mers x hashes evaluated at once — hash arithmetic is
-uint32 VPU math (identical bit-for-bit to index/hashing.py, tested), row
+Lockstep: all reads x k-mers x hashes evaluated at once — hash arithmetic is
+uint32 elementwise math (identical bit-for-bit to index/hashing.py, tested), row
 fetches are batched gathers of whole uint32 rows, bit unpack + count is a
 broadcast shift-and-mask summed over the k-mer axis.
 
@@ -123,11 +123,10 @@ def host_block_rows(words, n_bins: int = 0):
     """Host-side block-row layout for the device: slice the counted words
     and reshape (n_rows, Wd) -> (n_blocks, S*wdc) with numpy BEFORE upload.
 
-    Mandatory at scale: a device-side reshape of an (n_rows, 2)-shaped
-    filter forces an XLA relayout copy whose (8,128)-tiled form pads the
-    minor dim 2 -> 128 — a 64x allocation (196 GB for the 3 GB config-3
-    filter, compile-time OOM, round 4). The (n_blocks, 128) layout is
-    dense-minor and uploads/gathers with zero padding. Returns
+    A device-side reshape of an (n_rows, 2)-shaped filter can force a
+    relayout copy whose tiled form pads the tiny minor dim many times over
+    (a compile-time OOM for a multi-GB filter). The (n_blocks, 128) layout
+    is dense-minor and uploads/gathers with zero padding. Returns
     (rows, block_s) where block_s = S is the probe count per block that
     _count_rows_blocked needs for the in-block hash math."""
     import numpy as np
@@ -148,16 +147,13 @@ def _count_rows_blocked(filter_words, mixf, lanes_valid, n_hashes: int,
     """Blocked-layout counts: all n_hashes probes of a window live in ONE
     512 B block (row ids block*S + p_j — bit-identical to index/
     hashing.ibf_blocked_rows), fetched with ONE block-row gather per
-    window + an on-VPU one-hot probe select. Gathers on TPU pay per
-    INDEX, not per byte (round-3 measurement: 3 per-probe single-word
-    gathers ran at ~83M idx/s = 1.27s at config-2 batch shapes; one
-    block-row gather + one-hot select of the same words is 0.32s,
-    checksum-identical — tools/proto_classify_cost.py blockrow).
+    window + an elementwise one-hot probe select, instead of n_hashes
+    single-word gathers (checksum-identical).
 
-    The round-2 block-row attempt OOM'd because it gathered the full
-    512 B row for the WHOLE batch at once (15.7 GiB temp); this one
-    chunks the window axis (lax.map) so the materialized rows stay
-    ~1 GiB, and gathers only the counted words (wd_count) of each row.
+    Gathering the full 512 B row for the WHOLE batch at once materializes
+    a ~16 GiB temporary at config-2 shapes; this chunks the window axis
+    (lax.map) so the materialized rows stay ~1 GiB, and gathers only the
+    counted words (wd_count) of each row.
 
     wd_count: count only the first wd_count words per row (the words that
     hold real bins — the artifact pads bins to 64, so a B<=32 filter
@@ -166,8 +162,8 @@ def _count_rows_blocked(filter_words, mixf, lanes_valid, n_hashes: int,
 
     block_s > 0: filter_words is ALREADY the (n_blocks, S*wdc) block-row
     layout from host_block_rows (S = block_s) — the required form at scale;
-    the in-program reshape below relayouts through a 64x-padded tiled copy
-    when Wd is tiny (round-4 config-3 compile OOM)."""
+    the in-program reshape below can relayout through a padded tiled copy
+    when Wd is tiny."""
     from ..index.hashing import BLOCK_WORDS
 
     if block_s > 0:
@@ -233,9 +229,9 @@ def _count_rows(filter_words, rows_by_hash, lanes_valid):
 
     rows_by_hash: per-hash FLAT (R*M,) int32 row ids; lanes_valid: (R, M)
     bool; returns (R, Wd, 32). Every tensor here is 1-D or has a >=32 minor
-    axis: a (R, M, h, ...) layout with the tiny hash minor axis pads to 128
-    lanes under TPU tiling — at config-2 whole-batch shapes that was a 42x
-    (34 GiB) materialized gather operand. 1-D tensors tile densely.
+    axis: a (R, M, h, ...) layout with the tiny hash minor axis can be
+    padded by the compiler's tiling into a many-times-larger gather
+    operand. 1-D tensors lay out densely.
     """
     R, M = lanes_valid.shape
     Wd = filter_words.shape[1]
@@ -294,7 +290,7 @@ def ibf_bin_counts(filter_words: jnp.ndarray, reads: jnp.ndarray,
         n_sel = valid.sum(axis=1, dtype=jnp.int32)
     # per-hash FLAT row ids (bit-identical math to index/hashing.py); the
     # hash axis stays a Python loop so no tensor carries it as a tiny
-    # TPU-tiled minor dimension
+    # minor dimension
     mixf = mix.reshape(-1)                                     # (R*m,)
     if blocked:
         wd_count = (None if block_s > 0 else
@@ -360,8 +356,7 @@ def ibf_classify_packed(filter_words, blob, slack_table=None, *, half: int,
     """Whole-batch classification from packed uploads: unpack fwd+rc rows on
     device, count (selected) k-mers per bin, threshold, OR the two
     orientations, and bit-pack the (reads, bins) candidate mask so the
-    device->host fetch is one small array (SURVEY.md §3.1 HOT LOOP 1 with
-    tunnel-aware I/O)."""
+    device->host fetch is one small array (SURVEY.md §3.1 HOT LOOP 1)."""
     from .readpack import unpack_blob, unpack_fwd, unpack_reads
 
     packed, nmask, lengths = unpack_blob(blob, half, L)

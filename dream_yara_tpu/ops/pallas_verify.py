@@ -1,16 +1,29 @@
-"""Pallas TPU kernel for the banded-verification DP (HOT LOOP 3).
+"""Pallas (Triton route) kernel for the banded-verification DP (HOT LOOP 3).
 
-The XLA version (ops/verify.py) expresses the L-step DP as a fori_loop whose
-(W, C) carries round-trip HBM every iteration. This kernel runs the WHOLE DP
-per candidate tile inside VMEM and writes only the final (dist, begin, end)
-lanes. Identical tie-break semantics to ops/verify.py (tested equal).
+The XLA edition (ops/verify.py) runs the L-step DP as a fori_loop whose
+(W, C) carries go through device memory on every step, as a handful of small
+kernels per step. Here one program owns a tile of TILE candidates, one per
+lane, runs all L steps in registers and writes only (dist, begin, end).
 
-Mosaic constraints shape the layout:
-  * dynamic indexing must be on a leading (untiled) axis -> the window chars
-    are pre-expanded in XLA to (L, Wp, C) so step j reads wexp[j];
-  * the band axis is padded to Wp = ceil(W/8)*8 sublanes; pad rows are pinned
-    to INF every step so they can never win;
-  * integer argmin is open-coded as a W-row compare chain.
+Layout:
+  * the band is W = 2E+1 Python-unrolled (TILE,) int32 vectors, so the
+    "shift by one diagonal" of the XLA edition is a renaming, not a copy;
+  * the window chars of step j are rows j .. j+W-1 of the transposed
+    (WLEN, C) int8 windows; they slide by one row per step, so each step
+    loads exactly one new window row and one read row;
+  * codes >= 4 (N, sentinel, padding) are remapped on load to -1 (text) and
+    -2 (read), so a substitution is a single `!=` and such codes still
+    mismatch everything, as in ops/verify.py.
+
+Tie-breaking is lane-for-lane identical to ops/verify.py: the same up-move
+rule, the same k = 1, 2, 4, ... doubling scan for the in-row insertion
+dependency (a sequential chain over d can pick another begin under ties),
+and a strict-< argmin that keeps the smallest d. Every value is an int32, so
+the two editions are compared with exact equality.
+
+The text-window gather (128-char block rows + 7-step log-shift alignment)
+stays in XLA: its `tblock_fetch` hook carries the stacked per-bin tables of
+the flat step and the sharded-text psum (ops/verify.py).
 """
 
 from __future__ import annotations
@@ -20,59 +33,66 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
-INF = 1 << 20  # python int: Pallas kernels cannot capture traced constants
+from .verify import gather_windows, local_tblock_fetch
 
-TILE = 512  # candidates per program (4 x 128 lanes)
+# On an H100, tiles of 64-512 candidates on 2-8 warps timed within 10% of
+# each other at 2^20 candidates (L=100 and 150); 128 on 4 warps is kept.
+TILE = 128
+NUM_WARPS = 4
+NUM_STAGES = 1   # the step loop carries registers, no shared-memory ring
 
 
-def _dp_kernel(wexp_ref, rT_ref, anch_ref, len_ref,
-               dist_ref, beg_ref, end_ref, *, L: int, E: int, Wp: int):
+def _dp_kernel(wT_ref, rT_ref, anch_ref, len_ref, dist_ref, beg_ref, end_ref,
+               *, L: int, E: int):
     W = 2 * E + 1
-    C = wexp_ref.shape[2]
-    d_off = jax.lax.broadcasted_iota(jnp.int32, (Wp, C), 0)
-    in_band = d_off < W
+    INF = 1 << 20
+    lens = len_ref[...]
+    anch = anch_ref[...]
+    zero = jnp.zeros_like(lens)
 
-    D0 = jnp.where(in_band, 0, INF).astype(jnp.int32)
-    S0 = d_off
-    best0 = jnp.full((C,), INF, dtype=jnp.int32)
-    z = jnp.zeros((C,), dtype=jnp.int32)
-    lens = len_ref[0, :]
-    anch = anch_ref[0, :]
+    def text_row(i):
+        w = wT_ref[i, :].astype(jnp.int32)
+        return jnp.where(w >= 4, -1, w)
+
+    D0 = tuple(zero for _ in range(W))
+    S0 = tuple(zero + d for d in range(W))
+    win0 = tuple(text_row(d) for d in range(W - 1))
 
     def step(j, carry):
-        D, S, best, bbeg, bend = carry
-        # int32 compares: v5e Mosaic does not support int8 vector cmp
-        wchars = wexp_ref[j].astype(jnp.int32)                 # (Wp, C)
-        rchar = rT_ref[j].astype(jnp.int32)                    # (1, C)
-        sub = ((rchar != wchars) | (rchar >= 4) | (wchars >= 4)).astype(jnp.int32)
+        D, S, win, best, bbeg, bend = carry
+        wch = win + (text_row(j + W - 1),)
+        r = rT_ref[j, :].astype(jnp.int32)
+        r = jnp.where(r >= 4, -2, r)
 
-        diag = D + sub
-        up_D = jnp.concatenate(
-            [D[1:], jnp.full((1, C), INF, jnp.int32)], axis=0) + 1
-        up_S = jnp.concatenate([S[1:], jnp.zeros((1, C), jnp.int32)], axis=0)
-        take_up = up_D < diag
-        nD = jnp.where(take_up, up_D, diag)
-        nS = jnp.where(take_up, up_S, S)
+        # diagonal move, then the read-gap move from diagonal d+1
+        nD, nS = [], []
+        for d in range(W):
+            diag = D[d] + (r != wch[d]).astype(jnp.int32)
+            if d + 1 < W:
+                up = D[d + 1] + 1
+                take = up < diag
+                nD.append(jnp.where(take, up, diag))
+                nS.append(jnp.where(take, S[d + 1], S[d]))
+            else:
+                nD.append(diag)
+                nS.append(S[d])
+        # in-row insertion dependency: min-plus prefix scan by doubling,
+        # each round reading only the previous round's values
         k = 1
         while k < W:
-            cand = jnp.concatenate(
-                [jnp.full((k, C), INF, jnp.int32), nD[:-k]], axis=0) + k
-            candS = jnp.concatenate(
-                [jnp.zeros((k, C), jnp.int32), nS[:-k]], axis=0)
-            take = cand < nD
-            nD = jnp.where(take, cand, nD)
-            nS = jnp.where(take, candS, nS)
+            pD, pS = nD, nS
+            nD, nS = list(pD[:k]), list(pS[:k])
+            for d in range(k, W):
+                cand = pD[d - k] + k
+                take = cand < pD[d]
+                nD.append(jnp.where(take, cand, pD[d]))
+                nS.append(jnp.where(take, pS[d - k], pS[d]))
             k *= 2
-        nD = jnp.where(in_band, nD, INF)                       # pin pad rows
 
         done = (j + 1) == lens
-        # manual argmin over the W band rows (Mosaic lacks integer argmin);
-        # strict < keeps the smallest d on ties, matching ops/verify.py
-        row_best = nD[0]
-        d_best = jnp.zeros((C,), dtype=jnp.int32)
-        s_best = nS[0]
+        row_best, d_best, s_best = nD[0], zero, nS[0]
         for d in range(1, W):
             better = nD[d] < row_best
             row_best = jnp.where(better, nD[d], row_best)
@@ -81,107 +101,70 @@ def _dp_kernel(wexp_ref, rT_ref, anch_ref, len_ref,
         best = jnp.where(done, row_best, best)
         bbeg = jnp.where(done, anch - E + s_best, bbeg)
         bend = jnp.where(done, anch - E + (j + 1) + d_best, bend)
-        return nD, nS, best, bbeg, bend
+        return tuple(nD), tuple(nS), wch[1:], best, bbeg, bend
 
-    _, _, best, bbeg, bend = jax.lax.fori_loop(
-        0, L, step, (D0, S0, best0, z, z))
-    dist_ref[0, :] = best
-    beg_ref[0, :] = bbeg
-    end_ref[0, :] = bend
+    _, _, _, best, bbeg, bend = jax.lax.fori_loop(
+        0, L, step, (D0, S0, win0, zero + INF, zero, zero))
+    dist_ref[...] = best
+    beg_ref[...] = bbeg
+    end_ref[...] = bend
+
+
+def banded_dp_pallas(wT, rT, anchors, lengths, *, max_err: int,
+                     interpret: bool = False):
+    """The DP alone: wT (L+2E, C) int8 transposed text windows, rT (L, C)
+    int8 transposed reads, anchors / lengths (C,) int32. Candidates are
+    padded to a tile multiple here; padded lanes have length 0 and report
+    (INF, 0, 0), as ops/verify.py does for such lanes."""
+    L, C = rT.shape
+    E = int(max_err)
+    Cp = -(-C // TILE) * TILE
+    pad = Cp - C
+    if pad:
+        wT = jnp.pad(wT, ((0, 0), (0, pad)))
+        rT = jnp.pad(rT, ((0, 0), (0, pad)))
+        anchors = jnp.pad(anchors, (0, pad))
+        lengths = jnp.pad(lengths, (0, pad))
+    col = lambda i: (0, i)
+    lane = lambda i: (i,)
+    vec = pl.BlockSpec((TILE,), lane)
+    dist, beg, end = pl.pallas_call(
+        functools.partial(_dp_kernel, L=L, E=E),
+        grid=(Cp // TILE,),
+        in_specs=[pl.BlockSpec((wT.shape[0], TILE), col),
+                  pl.BlockSpec((L, TILE), col), vec, vec],
+        out_specs=[vec, vec, vec],
+        out_shape=[jax.ShapeDtypeStruct((Cp,), jnp.int32)] * 3,
+        backend="triton",
+        compiler_params=pltr.CompilerParams(num_warps=NUM_WARPS,
+                                            num_stages=NUM_STAGES),
+        interpret=interpret,
+        name="banded_verify_dp",
+    )(wT, rT, anchors.astype(jnp.int32), lengths.astype(jnp.int32))
+    return dist[:C], beg[:C], end[:C]
 
 
 def banded_verify_pallas_hooked(anchors, reads, read_rows, lengths,
                                 *, max_err: int, tblock_fetch,
                                 interpret: bool = False):
-    """Pallas verify with an injectable text-block fetcher — the multi-bin
-    flat-step edition (pipeline/flat_step.py): `tblock_fetch(brow) -> (C,
-    128)` supplies per-candidate 128-char text rows (e.g. stacked per-bin
-    tables addressed at bin*ntb + brow) and must return mismatch-code rows
-    (>= 4) for out-of-range block indices and padded block tails — the same
-    contract as ops/verify.banded_verify's hook. NOT jitted: call inside the
-    enclosing traced program (a function-valued arg can't cross a jit
-    boundary)."""
-    C = anchors.shape[0]
-    L = reads.shape[1]
+    """Kernel edition of ops.verify.banded_verify with an injected text-block
+    fetcher, for the multi-bin flat step (pipeline/flat_step.py): the hook
+    contract is banded_verify's. Not jitted: a function-valued argument
+    cannot cross a jit boundary, so call it inside the enclosing trace."""
     E = int(max_err)
-    W = 2 * E + 1
-    Wp = ((W + 7) // 8) * 8
-    WLEN = L + 2 * E
-
-    # --- gathers in XLA (block rows + log-shift alignment, see ops/verify) ---
-    reads_g = jnp.take(reads, read_rows, axis=0)
-    need = WLEN + (Wp - W)
-    n_wblocks = (need + 127) // 128 + 1
-    a0 = anchors - E
-    brow = a0 >> 7
-    rows2 = jnp.concatenate(
-        [tblock_fetch(brow + i) for i in range(n_wblocks)], axis=1)
-    shift = a0 & 127
-    for b in range(7):
-        k = 1 << b
-        rolled = jnp.concatenate([rows2[:, k:], rows2[:, :k]], axis=1)
-        rows2 = jnp.where(((shift >> b) & 1)[:, None] == 1, rolled, rows2)
-    windows = rows2[:, :need]                    # (C, WLEN + pad)
-
-    # pad candidates to a TILE multiple
-    Cp = ((C + TILE - 1) // TILE) * TILE
-    pad = Cp - C
-    windows = jnp.pad(windows, ((0, pad), (0, 0)), constant_values=6)
-    reads_p = jnp.pad(reads_g, ((0, pad), (0, 0)))
-    anch_p = jnp.pad(anchors, (0, pad))[None, :]
-    len_p = jnp.pad(lengths, (0, pad))[None, :]
-
-    # expand: wexp[j, d, c] = window char at diagonal d of step j
-    wexp = jnp.stack([windows[:, d : d + L] for d in range(Wp)], axis=0)
-    wexp = wexp.transpose(2, 0, 1)               # (L, Wp, Cp)
-    rT = reads_p.T[:, None, :]                   # (L, 1, Cp)
-
-    grid = (Cp // TILE,)
-    kernel = functools.partial(_dp_kernel, L=L, E=E, Wp=Wp)
-    dist, beg, end = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((L, Wp, TILE), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, 1, TILE), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, Cp), jnp.int32),
-            jax.ShapeDtypeStruct((1, Cp), jnp.int32),
-            jax.ShapeDtypeStruct((1, Cp), jnp.int32),
-        ],
-        interpret=interpret,
-    )(wexp, rT, anch_p, len_p)
-    return dist[0, :C], beg[0, :C], end[0, :C]
+    L = reads.shape[1]
+    wT = gather_windows(anchors, L, E, tblock_fetch).T       # (L+2E, C)
+    rT = jnp.take(reads, read_rows, axis=0).T                # (L, C)
+    return banded_dp_pallas(wT, rT, anchors, lengths, max_err=E,
+                            interpret=interpret)
 
 
 @functools.partial(jax.jit, static_argnames=("max_err", "interpret"))
 def banded_verify_pallas(text, anchors, reads, read_rows, lengths,
                          *, max_err: int, interpret: bool = False):
-    """Drop-in replacement for ops.verify.banded_verify (same contract):
-    single-bin local text; builds the guard-padded block table and delegates
-    to the hooked edition."""
-    L = reads.shape[1]
-    E = int(max_err)
-    W = 2 * E + 1
-    Wp = ((W + 7) // 8) * 8
-    need = (L + 2 * E) + (Wp - W)
-    n_wblocks = (need + 127) // 128 + 1
-    n = text.shape[0]
-    nb = (n + 127) // 128
-    padded = jnp.full(128 + (nb + n_wblocks + 1) * 128, 6, dtype=jnp.int8)
-    padded = jax.lax.dynamic_update_slice(padded, text.astype(jnp.int8), (128,))
-    tblocks = padded.reshape(-1, 128)
+    """Drop-in replacement for ops.verify.banded_verify (same contract) on
+    one bin's local text."""
     return banded_verify_pallas_hooked(
         anchors, reads, read_rows, lengths, max_err=max_err,
-        tblock_fetch=lambda r: jnp.take(tblocks, r + 1, axis=0),
+        tblock_fetch=local_tblock_fetch(text, reads.shape[1], int(max_err)),
         interpret=interpret)

@@ -1,9 +1,9 @@
 """Batched FM rank queries — the innermost device op of seed search.
 
 Reference analog: SeqAn rank-dictionary getRank inside backward search
-(HOT LOOP 2 in SURVEY.md §3.1). TPU-first design: a rank query is ONE row
+(HOT LOOP 2 in SURVEY.md §3.1). Design: a rank query is ONE row
 gather from the (n_blocks, 128) int8 BWT block matrix plus one row gather from
-the occ checkpoint table, then a 128-lane compare-and-count on the VPU — no
+the occ checkpoint table, then a 128-char compare-and-count in vector code — no
 data-dependent branching, fully batched over queries.
 """
 
@@ -45,8 +45,7 @@ def build_fused_rank_rows(bwt_blocks: "np.ndarray", occ: "np.ndarray"):
     int32 row per block: cols 0..5 = occ counts, cols 6..21 = 128 chars
     (8 per word, low nibble first), cols 22..23 pad.
 
-    Rationale: TPU gathers cost per index, and the plain rank issues THREE
-    per query (bwt row, occ row, take_along on the occ row). One fused row
+    Rationale: the plain rank issues THREE gathers per query (bwt row, occ row, take_along on the occ row). One fused row
     serves the whole query; the occ column select becomes compare-selects.
     """
     import numpy as np
@@ -109,7 +108,7 @@ def rank_all_fused_rows(row: jnp.ndarray, r: jnp.ndarray) -> jnp.ndarray:
     """occ counts of ALL six symbols at in-block pos r: row (Q, 24) -> (Q, 6).
 
     Same two-gather budget as a plain rank query (the caller fetched `row`);
-    the extra work is five more VPU compare-counts over the decoded block —
+    the extra work is five more vector compare-counts over the decoded block —
     this is what makes bidirectional interval tracking gather-neutral."""
     words = row[:, 6:22].astype(jnp.uint32)             # (Q, 16)
     nib = (jnp.arange(8, dtype=jnp.uint32) * 4)[None, None, :]

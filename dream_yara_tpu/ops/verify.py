@@ -1,8 +1,8 @@
 """Banded edit-distance verification of candidate locations (HOT LOOP 3).
 
 Reference analog: banded Myers bit-vector DP in src/find_extender.h /
-find_verifier.h [U]. TPU-first redesign: instead of Myers' word-parallel
-bit tricks (great on scalar CPUs, poor fit for 8x128 VPU lanes), we run a
+find_verifier.h [U]. Instead of Myers' word-parallel bit tricks (great on
+scalar CPUs, a poor fit for wide vector lanes), we run a
 *banded Levenshtein DP over the anti-band axis*, vectorized across candidates:
 
   state D[c, d] = min edits aligning read_c[0:j] to window ending at diagonal
@@ -27,6 +27,41 @@ INF = 1 << 20  # plain int: a module-level jnp scalar would initialize the
                # XLA backend at import, breaking jax.distributed.initialize
 
 
+def local_tblock_fetch(text: jnp.ndarray, L: int, E: int):
+    """Block fetcher over one bin's local text: guard-padded 128-char block
+    rows (one leading and enough trailing blocks of code 6, which
+    mismatches everything), so out-of-text positions need no mask."""
+    n_wblocks = (L + 2 * E + 127) // 128 + 1
+    n = text.shape[0]
+    nb = (n + 127) // 128
+    padded = jnp.full(128 + (nb + n_wblocks + 1) * 128, 6, dtype=jnp.int8)
+    padded = jax.lax.dynamic_update_slice(padded, text.astype(jnp.int8), (128,))
+    tblocks = padded.reshape(-1, 128)
+    return lambda r: jnp.take(tblocks, r + 1, axis=0)
+
+
+def gather_windows(anchors: jnp.ndarray, L: int, E: int,
+                   tblock_fetch) -> jnp.ndarray:
+    """(C, L+2E) int8 text windows [anchor-E, anchor+L+E) per candidate.
+
+    The windows are fetched as whole 128-char block rows (few gather
+    indices) and aligned with a 7-step log-shift (uniform rolls + selects),
+    not as an elementwise (C, L+2E) gather.
+    """
+    WLEN = L + 2 * E
+    n_wblocks = (WLEN + 127) // 128 + 1
+    a0 = anchors - E                               # >= -E > -128 always
+    brow = a0 >> 7
+    rows2 = jnp.concatenate([tblock_fetch(brow + i) for i in range(n_wblocks)],
+                            axis=1)                # (C, n_wblocks*128)
+    shift = a0 & 127
+    for b in range(7):                             # align: left-shift by (a0 & 127)
+        k = 1 << b
+        rolled = jnp.concatenate([rows2[:, k:], rows2[:, :k]], axis=1)
+        rows2 = jnp.where(((shift >> b) & 1)[:, None] == 1, rolled, rows2)
+    return rows2[:, :WLEN]
+
+
 def banded_verify(text: jnp.ndarray, anchors: jnp.ndarray, reads: jnp.ndarray,
                   read_rows: jnp.ndarray, lengths: jnp.ndarray, max_err: int,
                   tblock_fetch=None):
@@ -37,55 +72,34 @@ def banded_verify(text: jnp.ndarray, anchors: jnp.ndarray, reads: jnp.ndarray,
     candidate; lengths: (C,) int32; max_err: static band radius E.
 
     `tblock_fetch(brow) -> (C, 128)` overrides the local text-block gather
-    (mesh-sharded text, parallel/sharded_fm.py); it must return all-6 rows
-    for out-of-range block indices (brow < 0 or past the text end) and the
-    final partial block padded with 6.
+    (stacked per-bin tables, pipeline/flat_step.py; mesh-sharded text,
+    parallel/sharded_fm.py); it must return rows of codes >= 4 for
+    out-of-range block indices (brow < 0 or past the text end) and the
+    final partial block padded likewise.
 
     Returns (dist, begin, end): (C,) int32 each — best whole-read edit
     distance within the band, and its text begin/end (end exclusive).
     Candidates whose optimum leaves the band report dist >= INF/2.
     """
-    C = anchors.shape[0]
     L = reads.shape[1]
     E = int(max_err)
-    W = 2 * E + 1
-
-    # Gather per-candidate read rows and text windows once (coalesced).
-    # LAYOUT: candidates on the LANE (minor) axis — state arrays are (W, C),
-    # so every VPU op runs at full 128-lane width (a (C, W) layout with
-    # W ~ 7-15 on lanes wastes >90% of the vector unit).
-    # TPU gathers cost per INDEX (~45M/s), not per byte, so the text windows
-    # are fetched as whole 128-char BLOCK rows (few indices) and aligned with
-    # a 7-step log-shift (uniform rolls + selects — pure VPU), instead of an
-    # elementwise (C, L+2E) gather (C*(L+2E) indices; measured ~25x slower).
-    reads_g = jnp.take(reads, read_rows, axis=0)                   # (C, L)
-    rT = reads_g.T                                                 # (L, C)
-
-    WLEN = L + 2 * E
-    n_wblocks = (WLEN + 127) // 128 + 1
-    a0 = anchors - E                               # >= -E > -128 always
+    # LAYOUT: candidates on the minor axis — state arrays are (W, C), so
+    # every elementwise op runs over the long candidate axis.
+    rT = jnp.take(reads, read_rows, axis=0).T                      # (L, C)
     if tblock_fetch is None:
-        # guard-padded text blocks: one leading + n_wblocks trailing blocks
-        # of 6 (the mismatch-everything code), so out-of-text positions need
-        # no mask.
-        n = text.shape[0]
-        nb = (n + 127) // 128
-        padded = jnp.full(128 + (nb + n_wblocks + 1) * 128, 6, dtype=jnp.int8)
-        padded = jax.lax.dynamic_update_slice(padded, text.astype(jnp.int8),
-                                              (128,))
-        tblocks = padded.reshape(-1, 128)
-        tblock_fetch = lambda r: jnp.take(tblocks, r + 1, axis=0)
-    brow = a0 >> 7
-    blocks = [tblock_fetch(brow + i) for i in range(n_wblocks)]
-    rows2 = jnp.concatenate(blocks, axis=1)        # (C, n_wblocks*128)
-    shift = a0 & 127
-    for b in range(7):                             # align: left-shift by (a0 & 127)
-        k = 1 << b
-        rolled = jnp.concatenate([rows2[:, k:], rows2[:, :k]], axis=1)
-        rows2 = jnp.where(((shift >> b) & 1)[:, None] == 1, rolled, rows2)
-    windows = rows2[:, :WLEN]
-    wT = windows.T                                                 # (L+2E, C)
+        tblock_fetch = local_tblock_fetch(text, L, E)
+    wT = gather_windows(anchors, L, E, tblock_fetch).T             # (L+2E, C)
+    return banded_dp(wT, rT, anchors, lengths, E)
 
+
+def banded_dp(wT: jnp.ndarray, rT: jnp.ndarray, anchors: jnp.ndarray,
+              lengths: jnp.ndarray, max_err: int):
+    """The DP alone, on gathered operands: wT (L+2E, C) int8 transposed
+    text windows, rT (L, C) int8 transposed reads. Returns (dist, begin,
+    end) as banded_verify does."""
+    L, C = rT.shape
+    E = int(max_err)
+    W = 2 * E + 1
     d_off = jnp.arange(W, dtype=jnp.int32)
 
     # D[d,c]: edits for read[0:j] vs window[0:j+d]; S[d,c]: window offset

@@ -10,14 +10,13 @@ bin placement plus offline SAM merge. Here distribution is first-class:
   * the sharded classify->route->map step from parallel/dist_mapper runs
     SPMD across all hosts (same program as single-host);
   * matches, fallback results, and per-bin CIGAR strings merge across hosts
-    with `process_allgather` (ICI/DCN collectives — not filesystem merges);
+    with `process_allgather` (collectives — not filesystem merges);
     ranking/pairing/MAPQ then run replicated on the deterministic global
     match table, and process 0 emits the SAM.
 
-Validated in-image with the multiprocess CPU backend (2 processes x 4
-virtual devices, tools/multihost_demo.py + tests/test_multihost.py) since
-only one real TPU chip is available; the same code path drives TPU pods
-(jax.distributed.initialize with no args under a pod scheduler).
+Validated with the multiprocess CPU backend (2 processes x 4 virtual
+devices, tools/multihost_demo.py + tests/test_multihost.py) and with one
+process per GPU on a 4-GPU host (chip_smoke.py --four).
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ from ..index.ibf import InterleavedBloomFilter
 from ..index.kdx import DirectKmerFilter
 from ..ops.device_index import DeviceFMSet
 from ..pipeline.dis_mapper import bin_file, _sub_batch
-from ..pipeline.map_step import max_seed_len_static, use_pallas_default
+from ..pipeline.map_step import max_seed_len_static, verify_uses_kernel
 from ..pipeline.matches import Matches, dedup_matches, rank_matches
 from ..pipeline.seeding import max_errors_for_batch, rate_to_ppm
 from ..pipeline.writer import GlobalContigs
@@ -47,15 +46,34 @@ from .dist_mapper import (MeshMapOut, build_mesh_dream_step,
                           decode_flat_device, decode_routing, pack_batch_blob)
 
 
-def init_multihost(coordinator: str, num_processes: int, process_id: int):
-    """Join the jax.distributed runtime (no-op if already initialized).
+def local_gpu_count() -> int:
+    """GPUs this process could open, counted without initializing JAX:
+    CUDA_VISIBLE_DEVICES when set, else the driver's /dev/nvidiaN nodes."""
+    import glob
+    import os
+    import re
 
-    On a real pod with a cluster scheduler, jax.distributed.initialize()
-    with no arguments auto-detects; this explicit form serves the CPU
-    multi-process validation path and bare-metal launches."""
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return len([v for v in vis.split(",") if v.strip()])
+    return len([p for p in glob.glob("/dev/nvidia*")
+                if re.fullmatch(r"/dev/nvidia\d+", p)])
+
+
+def init_multihost(coordinator: str, num_processes: int, process_id: int):
+    """Join the jax.distributed runtime with explicit coordinates.
+
+    One process per GPU: when the process count equals the local GPU count
+    (all processes on one host), each process takes only GPU `process_id`
+    — otherwise every process would open every card and reserve its
+    memory."""
+    local_device_ids = None
+    if num_processes == local_gpu_count():
+        local_device_ids = [process_id]
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
 
 
 def make_multihost_mesh() -> Mesh:
@@ -115,7 +133,7 @@ class MultiHostDreamMapper:
         self.B = ((self.n_bins + self.bin_ax - 1) // self.bin_ax) * self.bin_ax
         self.B_loc = self.B // self.bin_ax
         self.r_cap_arg = r_cap
-        self.use_pallas = use_pallas_default()
+        self.use_pallas = verify_uses_kernel()
 
         # light global contig table from metadata only (every host)
         names, lengths, starts, bin_starts = [], [], [], [0]

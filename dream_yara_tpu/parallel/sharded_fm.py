@@ -2,7 +2,7 @@
 
 Reference analog: SURVEY.md §5.7 — the reference caps bins at what one
 process's RAM holds; the DREAM answer to bigger references is more bins.
-On TPU the natural alternative is to shard ONE bin's tables over a mesh
+On a device mesh the natural alternative is to shard ONE bin's tables over a mesh
 axis and let XLA collectives assemble rows on demand:
 
   * every device holds a contiguous ROW RANGE of each table — fused rank
@@ -10,16 +10,16 @@ axis and let XLA collectives assemble rows on demand:
     (4^q, 2) q-mer prefix table;
   * queries are replicated over the shard axis; a row fetch is a masked
     LOCAL gather (devices return 0 for rows they don't own) followed by a
-    `psum` over the axis — one all-reduce riding ICI per fetch wave;
+    `psum` over the axis — one all-reduce per fetch wave;
   * all other compute (seeding, interval updates, dedup/compaction, the
     banded verify DP) is replicated: it is small next to the tables, and
     replication keeps the math identical to the single-device map step,
     so the outputs are BIT-IDENTICAL (tests/test_sharded_fm.py).
 
-Per-device HBM for a bin of n bp: ~(24/128 + 4 + 1) * n / K bytes plus the
-prefix table slice — an n = 3 Gbp bin fits 8 v5e devices comfortably where
-it could never fit one. Throughput trades one psum per fetch wave; the shard
-axis should ride ICI, never DCN.
+Per-device memory for a bin of n bp: ~(24/128 + 4 + 1) * n / K bytes plus
+the prefix table slice, so K devices hold a bin K times larger than one
+device's memory. Throughput trades one psum per fetch wave; the shard axis
+should stay within a host's device interconnect.
 """
 
 from __future__ import annotations

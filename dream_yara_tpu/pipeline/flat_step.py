@@ -5,18 +5,18 @@ each device's local bins. That design has two structural costs that config-5
 (256 skewed bins) exposed brutally:
 
   * the scan SERIALIZES hundreds of tiny map steps — at 256 bins the pass is
-    launch-latency-bound (sequential little ops), the VPU nearly idle;
+    launch-latency-bound (sequential little ops), the device nearly idle;
   * every bin gets the same fixed r_cap read slots, so slot work scales with
     B * max_bin_load — a single hot bin inflates EVERY bin's padding.
 
-TPU-first replacement: compact all routed (read, bin) pairs of a device into
+Replacement: compact all routed (read, bin) pairs of a device into
 ONE shared slot pool (bin-major order, cumsum + scatter, no sort) and run a
 single map step over the flattened multi-bin index space. Every table row
 fetch simply adds the slot's bin offset — fused rank rows, counts, q-mer
 prefix rows, 8-wide SA rows and 128-wide text blocks are all (B, rows, W)
 stacks gathered at bin*rows + local_row via the FetchHooks seams. Slot work
 now scales with TOTAL ROUTED PAIRS, independent of skew, and the whole pass
-is one dense batch (full VPU lanes, no sequential bin loop).
+is one dense batch (full vector width, no sequential bin loop).
 
 Slot rows are laid out [T fwd | T rc]; seeds inherit the single-bin layout,
 so MapStepOut decoding matches the single-bin conventions with
@@ -170,9 +170,9 @@ def _flat_core(fmset, reads, lengths, bin_slot, rate_ppm, max_errors,
         sa_rows, hmask, overflow = gather_hit_rows(lo, hi, capacity)
         # Compact valid lanes BEFORE the LF walk: the walk costs
         # sample_rate-1 fori iterations of row gathers PER LANE, and only a
-        # few percent of the S*capacity lanes are real hits (measured on
-        # the 64x32 Mbp config-3 DB: walking all 20M lanes at rate 16 was
-        # 27.7s of a 32s step). Valid lanes of a seed-row are a contiguous
+        # few percent of the S*capacity lanes are real hits (on the 64x32
+        # Mbp config-3 DB, walking all 20M lanes took most of the step).
+        # Valid lanes of a seed-row are a contiguous
         # prefix (gather_hit_rows mask = lane < cnt), so the row-start
         # scatter + cumulative-max fill from global_compact applies
         # directly; dropped lanes (pool overflow) are folded into the
@@ -283,9 +283,8 @@ def _flat_core(fmset, reads, lengths, bin_slot, rate_ppm, max_errors,
     n_reads = lengths.shape[0]
     lrow = jnp.take(lengths, vrow % n_reads).astype(jnp.int32)
     if use_pallas:
-        # VMEM-resident DP (2-3x the XLA fori_loop, which round-trips the
-        # (W, C) carry through HBM every step); the window fetch stays in
-        # XLA via the same stacked-table hook
+        # register-resident DP kernel; the window fetch stays in XLA via
+        # the same stacked-table hook
         from ..ops.pallas_verify import banded_verify_pallas_hooked
 
         dist, beg, end = banded_verify_pallas_hooked(

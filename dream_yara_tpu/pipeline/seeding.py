@@ -5,7 +5,7 @@ E+1 disjoint seeds; any alignment with <= E errors contains >= 1 exact seed
 (disjointness suffices — coverage of the tail is not required). Seed length =
 len // (E+1), seed s starts at s * slen.
 
-TPU-first: seed descriptors are computed *inside jit* from the device length
+Device-first: seed descriptors are computed *inside jit* from the device length
 vector — (rows, starts, slens) arrays of static size R2 * (E_max+1), with
 slens == 0 marking seeds beyond a read's own budget. Error budgets use integer
 arithmetic (rate expressed in 1/10000ths) so host and device agree exactly.

@@ -1,6 +1,6 @@
 """Dna5 alphabet codes and bit packing.
 
-TPU-first layout decision (vs. reference `src/basic_alphabet.h` SeqAn Dna5 [U]):
+Device-first layout decision (vs. reference `src/basic_alphabet.h` SeqAn Dna5 [U]):
 sequences live as flat int8 code arrays (A=0, C=1, G=2, T=3, N=4) on host and
 device. The FM-index text additionally uses SENTINEL=5 as the contig separator /
 terminator, so rank structures run over a 6-symbol alphabet whose occ tables are

@@ -30,7 +30,7 @@ class MapperOptions:
     filter_type: str = "bloom"        # -ft : bloom|kmer_direct|none
     filter_file: str = ""             # -fi
     output_file: str = "-"            # -o
-    # TPU-native options (no reference analog)
+    # device-path options (no reference analog)
     devices: str = "auto"             # mesh spec, e.g. "auto", "cpu:8"
     bin_capacity_factor: float = 2.0  # routing capacity factor (parallel/routing.py)
     # approximate-seed backend: auto|enum|bidir. 'bidir' = search schemes on

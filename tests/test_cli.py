@@ -100,9 +100,9 @@ def test_cli_pe_flow(toy_db, rng):
 
 
 def test_indexer_auto_sample_rate(tmp_path, rng):
-    """VERDICT r2 weak #6: the default must never build artifacts the
-    flagship config cannot load. Auto rate = smallest of (1,8,16,32) whose
-    whole-DB footprint fits half of --hbm-gb; tiny DBs keep the full SA;
+    """The default must never build artifacts the flagship config cannot
+    load. Auto rate = smallest of (1,8,16,32) whose whole-DB footprint
+    fits half of the device-memory budget; tiny DBs keep the full SA;
     --bin-id rebuilds inherit the DB's existing rate from meta.json."""
     import json
 
@@ -113,6 +113,7 @@ def test_indexer_auto_sample_rate(tmp_path, rng):
     assert auto_sample_rate(5_000_000, 16.0) == 1
     assert auto_sample_rate(2_050_000_000, 16.0) == 8
     assert auto_sample_rate(60_000_000_000, 16.0) == 32  # refuse-path scale
+    assert auto_sample_rate(2_050_000_000, None) == 1     # no known budget
 
     # end-to-end: explicit rate recorded in meta; --bin-id inherits it
     g = random_text(rng, 4000)

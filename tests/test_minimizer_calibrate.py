@@ -39,7 +39,7 @@ def test_calibrated_tighter_than_heuristic(rng):
     heur_slack = m - InterleavedBloomFilter.minimizer_threshold(m, k, w, e)
     p = int(np.quantile(s, 0.999, method="higher"))
     assert p < heur_slack
-    assert p <= 30  # measured ~24; leave tunnel-free determinism margin
+    assert p <= 30  # measured ~24; leave a determinism margin
 
 
 def test_device_count_semantics_duplicates(rng):

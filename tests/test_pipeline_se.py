@@ -183,9 +183,8 @@ def test_strata_count_matches_golden(strata):
 
 def test_dense_reverify_subchunks(monkeypatch):
     """Compaction spill -> dense re-verify path: the all-slots program now
-    runs in bounded sub-chunks (the whole-chunk variant compiled to 15.8 GB
-    HBM at 131k-row shapes on multi-10-Mbp bins — round-5 repeat-rich
-    bench). Force a spill with tandem-repeat reads and a tiny sub-chunk
+    runs in bounded sub-chunks (the whole-chunk variant compiles to many GB
+    of temporaries at 131k-row shapes on multi-10-Mbp bins). Force a spill with tandem-repeat reads and a tiny sub-chunk
     size, and require the exact same matches as the default path."""
     import dream_yara_tpu.pipeline.mapper as mapper_mod
     from dream_yara_tpu.pipeline.mapper import BinMapper

@@ -90,9 +90,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      str(Path(__file__).parent.parent / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from dream_yara_tpu.cli.common import enable_compile_cache
+
+    enable_compile_cache()
 
     from dream_yara_tpu.io.readstore import ReadBatch
     from dream_yara_tpu.pipeline.dis_mapper import (DreamIndex,

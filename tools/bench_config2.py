@@ -121,9 +121,9 @@ def make_pairs(genomes, stores, n_pairs, rng):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      str(Path(__file__).parent.parent / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from dream_yara_tpu.cli.common import enable_compile_cache
+
+    enable_compile_cache()
 
     from dream_yara_tpu.pipeline.dis_mapper import dream_map_stream
     from dream_yara_tpu.utils.options import MapperOptions

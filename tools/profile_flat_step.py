@@ -22,9 +22,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      str(Path(__file__).parent.parent / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from dream_yara_tpu.cli.common import enable_compile_cache
+
+    enable_compile_cache()
 
     from bench_config2 import LD, LL, build_or_load, make_pairs
     from dream_yara_tpu.ops.device_index import DeviceFMSet
@@ -92,7 +92,9 @@ def main():
         return reads, lengths, rs, bs, valid
 
     import os
-    use_pallas = os.environ.get("DY_PFS_PALLAS", "0") == "1"
+    from dream_yara_tpu.pipeline.map_step import verify_uses_kernel
+
+    use_pallas = verify_uses_kernel()
     cap2v = float(os.environ.get("DY_CAP2V", "1.25"))
     compact_cap = max(8, int(cap2v * t_cap))
 

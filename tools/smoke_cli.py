@@ -2,8 +2,9 @@
 BAM) on a toy 2-bin database. Exercises the same four console entry points a
 user drives (SURVEY.md §2.1), asserting every planted read maps.
 
-Runs on whatever JAX platform is active (CI pins JAX_PLATFORMS=cpu; in-image
-it can drive the real chip). Usage: python tools/smoke_cli.py
+Runs on the CPU backend only (it pins jax_platforms=cpu before any device
+use); chip_smoke.py drives the same entry points on the GPU.
+Usage: python tools/smoke_cli.py
 """
 
 from __future__ import annotations
@@ -18,12 +19,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
-try:  # force CPU when available: CI boxes have no accelerator anyway
-    import jax
+import jax
 
-    jax.config.update("jax_platforms", "cpu")
-except Exception:
-    pass
+jax.config.update("jax_platforms", "cpu")
 
 COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
 
